@@ -1,16 +1,15 @@
-"""Benchmark entry point — run by the driver on real TPU hardware.
+"""Benchmark entry point — runs on the GPU and fails without one.
 
-Measures the TPU fold engine's throughput on the reference benchmark
+Measures the batched fold engine's throughput on the reference benchmark
 corpus at the reference's headline configuration (-n 100 -ms 50,
 /root/reference/benchmark_results/bench_fft.py:8) and prints ONE JSON
-line.
+line naming the device it ran on.
 
 The headline metric stays the <=120-nt slice (round-to-round
 continuity); the JSON additionally carries `per_bucket` sampled rates
-for every length bucket the TPU engine serves (64..1024, the sweep's
-own per-bucket configs, sweep.py:157-166) and `corpus_seqs_per_s`, the
-whole-corpus rate implied by those rates and the corpus's true bucket
-populations (VERDICT r4 item 5).  The 10 sequences over 1024 nt (0.4%
+for every length bucket the batched engine serves (128..1024) and
+`corpus_seqs_per_s`, the whole-corpus rate implied by those rates and
+the corpus's true bucket populations.  The 10 sequences over 1024 nt (0.4%
 of the corpus) run on the sequential CPU longtail path
 (tools/fold_longtail.py) and are excluded from the measured aggregate —
 their bucket entries say so rather than pretending coverage.
@@ -62,9 +61,28 @@ def bucket_rate(N, sample, seqs_by_bucket):
     return n / (time.time() - t0), n
 
 
+def device_info():
+    """The device the numbers come from; exits when it is not a GPU."""
+    import subprocess
+
+    import jax
+
+    devs = jax.devices()
+    if devs[0].platform != "gpu":
+        raise SystemExit(f"bench.py measures the GPU; JAX's default device "
+                         f"is {devs[0].platform}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    name, _, limit = smi.stdout.strip().splitlines()[0].partition(", ")
+    return {"platform": devs[0].platform, "kind": devs[0].device_kind,
+            "count": len(devs), "card": name, "power_limit": limit}
+
+
 def main():
     import csv
 
+    device = device_info()
     base = 1.0
     if os.path.exists(BASELINE_ART):
         with open(BASELINE_ART) as fh:
@@ -140,6 +158,7 @@ def main():
         "corpus_covered": agg_n,
         "corpus_excluded_gt1024nt": n_longtail,
         "baseline_seqs_per_s": base,
+        "device": device,
     }))
 
 

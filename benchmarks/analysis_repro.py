@@ -13,7 +13,7 @@ number in /root/reference/analysis.org:
 By default it uses the reference's frozen CSVs (reproducing the
 notebook bit-for-bit where our helpers match RNA.b2Shapiro);
 --fft/--fftb/--fft_nrj substitute our regenerated CSVs to compare the
-TPU engine's corpus run against the published numbers.
+batched engine's corpus run against the published numbers.
 
 Usage:
   python benchmarks/analysis_repro.py [--fft F] [--fftb F] [--fft_nrj F]

@@ -27,7 +27,7 @@ def main():
     ap.add_argument("--limit", type=int)
     ap.add_argument("--max_len", type=int)
     ap.add_argument("--jax", action="store_true",
-                    help="use the batched TPU DP instead of native C++")
+                    help="use the batched JAX DP instead of native C++")
     ap.add_argument("--batch", type=int, default=16)
     args = ap.parse_args()
 

@@ -1,8 +1,8 @@
-"""rafft_tpu — a TPU-native RNA fast-folding framework.
+"""rafft_tpu — an RNA fast-folding framework on JAX.
 
 A from-scratch reimplementation of the capabilities of lemerleau/RAFFT
 (FFT-based RNA folding-path prediction + kinetic master-equation analysis),
-re-designed for TPU hardware: JAX/XLA compute path, integer Turner-2004
+re-designed for accelerator hardware: JAX/XLA compute path, integer Turner-2004
 energy model (no ViennaRNA dependency), batched fixed-shape beam search,
 and data-parallel sweeps over device meshes.
 

@@ -43,7 +43,7 @@ def parse_arguments(argv=None):
                         help="Use the tree-keeping (nono) engine instead.")
     parser.add_argument('--engine', choices=("cpu", "jax"), default="cpu",
                         help="fold engine: cpu (sequential parity oracle) or "
-                             "jax (batched TPU engine)")
+                             "jax (batched device engine)")
     return parser.parse_args(argv)
 
 

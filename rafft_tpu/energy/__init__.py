@@ -9,7 +9,7 @@ self-contained table-driven evaluator:
   - _calibrated.py — exact corrections recovered from the reference's
                      frozen (sequence, structure, energy) corpus
   - eval_np.py   — exact integer CPU evaluator (the oracle)
-  - eval_jax.py  — batched JAX/TPU evaluator (same integer arithmetic)
+  - eval_jax.py  — batched JAX evaluator (same integer arithmetic)
 """
 
 from rafft_tpu.energy.params import EnergyParams, get_params

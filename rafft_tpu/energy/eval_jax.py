@@ -1,4 +1,4 @@
-"""Batched JAX/TPU evaluator for the integer Turner-2004 model.
+"""Batched JAX evaluator for the integer Turner-2004 model.
 
 Evaluates whole pair tables in one `lax.scan` over positions with an
 explicit loop-frame stack (depth <= N/2+1), vmappable over any batch of
@@ -9,10 +9,10 @@ equality over the reference corpus.
 Special hairpins (tetra/tri/hexa loops) use dense base-5-keyed lookup
 arrays so the string matching of the reference oracle becomes a gather.
 
-Design notes (TPU): the scan is sequential in N but all per-step work is
+Design notes: the scan is sequential in N but all per-step work is
 O(1) gathers/selects, so throughput comes from vmapping thousands of
-candidate structures across VPU lanes; tables are small int32 arrays
-resident in device memory.
+candidate structures across the device's lanes; tables are small int32
+arrays resident in device memory.
 """
 
 from __future__ import annotations
@@ -76,10 +76,9 @@ class DeviceParams:
         self.int11 = jnp.asarray(p.int11, dtype=jnp.int32)
         self.int21 = jnp.asarray(p.int21, dtype=jnp.int32)
         self.int22 = jnp.asarray(p.int22, dtype=jnp.int32)
-        # combined small-internal-loop table: computed-index gathers are
-        # uniformly slow on TPU regardless of table size (measured ~40 ms
-        # per 1.3M-index gather, tools/microbench_medtab.py), so the
-        # mutually-exclusive int11/int21/int22 cases share ONE gather
+        # combined small-internal-loop table: the mutually-exclusive
+        # int11/int21/int22 cases share ONE lookup (one gather where the
+        # lookup helpers pick gathers, tools/microbench_medtab.py)
         # from a concatenated table (slot 0 = sentinel for other cases)
         self.small_loop = jnp.concatenate([
             jnp.zeros(1, jnp.int32),
@@ -130,9 +129,9 @@ def device_params(temperature: float = 37.0, max_len: int = 4096) -> DeviceParam
 
 
 def _g(table, *idx):
-    """Multi-index table lookup, lowered to the TPU-fast formulation
-    (one-hot einsum for small-table/large-index, flat gather otherwise;
-    see engine/lookup.py for the measured pathology)."""
+    """Multi-index table lookup through engine/lookup.py's formulation
+    choice (one-hot einsum for small-table/large-index, flat gather
+    otherwise)."""
     assert len(idx) == len(table.shape)
     return table_lookup(table, *idx)
 
@@ -229,8 +228,7 @@ def _int_loop_v(dp, t1, t2, si1, sj1, sp1, sq1, n1, n2):
     # lookup from the row/column-factored table (dp.small2d) — the last
     # two base-5 digits of each case's index form the column, so the
     # lookup runs as a row-select matmul + 25-wide contraction instead
-    # of a computed-index gather (~40 ms per 1.3M indices on this TPU,
-    # tools/microbench_medtab.py)
+    # of a computed-index gather (tools/microbench_medtab.py)
     sel11 = (ns == 1) & (nl == 1)
     sel21 = (ns == 1) & (nl == 2)
     sel22 = (ns == 2) & (nl == 2)
@@ -324,8 +322,8 @@ def eval_pt(dp: DeviceParams, codes: jnp.ndarray, pt: jnp.ndarray,
     # parent opening of each opening i: max p < i with pt[p] > i (else -1).
     # Single fused masked max-reduction — everything downstream is
     # masked-reduction arithmetic over the same [N, N] relation (no
-    # segment_sum/argsort: scatters and computed-index sorts are
-    # pathologically slow on this TPU backend, see engine/lookup.py).
+    # segment_sum/argsort: no scatters or computed-index sorts, the
+    # formulation engine/lookup.py prefers).
     enc = (ii[None, :] < ii[:, None]) & is_open[None, :] & (pt[None, :] > ii[:, None])
     parent = jnp.max(jnp.where(enc, ii[None, :], -1), axis=1)  # [N]
 

@@ -1,6 +1,6 @@
-"""Batched TPU fold engine (jit/vmap, fixed shapes).
+"""Batched fold engine on the device (jit/vmap, fixed shapes).
 
-A from-scratch TPU-first redesign of the reference's beam BFS
+A from-scratch device-first redesign of the reference's beam BFS
 (/root/reference/rafft/rafft.py:112-239).  Key design decisions:
 
 * **Beam state is just pair tables + energies.**  The reference's
@@ -24,9 +24,12 @@ A from-scratch TPU-first redesign of the reference's beam BFS
   position-wise (each position computes its own partner from the chosen
   candidates), so stems of any length cost O(1) per position.
 
-* Correlation is a batched real FFT over fixed-size padded regions; with
-  the default integer pair weights the spectrum is rounded back to exact
-  integers so lag ranking is deterministic.
+* On the GPU, correlation and window slide run as one lag-indexed
+  anti-diagonal sweep (engine/wavefront.py) within its shape limits;
+  elsewhere the
+  correlation is a batched real FFT over fixed-size padded regions,
+  rounded back to exact integers for the default integer pair weights,
+  so lag ranking is deterministic.
 
 Parity notes: results match the CPU engine except for (a) float32 vs
 float64 correlation tie noise, (b) the reference's max_branch overshoot
@@ -53,9 +56,10 @@ from rafft_tpu.energy.eval_jax import (device_params, analyze_pt, eval_pt,
                                        _kmer_keys)
 from rafft_tpu.scan.encode import CHANNEL_CODES, weight_matrix
 from rafft_tpu.engine.lookup import (flat_lookup, batched_taa,
-                                     diag_extract, row_lookup)
+                                     row_lookup, assume_batched)
+from rafft_tpu.engine.wavefront import supported, wavefront_tables
 
-NEG = jnp.float32(-3.0e38)
+NEG = np.float32(-3.0e38)
 
 # exactness-flag bits (out_flag / enum_suspect): which budget tripped.
 # Any nonzero flag routes the sequence to the CPU-parity refold pool;
@@ -180,18 +184,23 @@ def _correlate(cfg, W, rcodes, mlen, integral):
     cor = conv.sum(axis=-2)
     if integral:
         cor = jnp.round(cor)
+    return _normalise(cor, mlen, N)
+
+
+def _normalise(cor_raw, mlen, N):
+    """Raw per-lag correlation sums [..., 2N] -> the normalised
+    correlation _correlate returns, [..., 2N-1]."""
     lag = jnp.arange(2 * N - 1, dtype=jnp.int32)
     m = mlen[..., None]
     norm = (jnp.minimum(lag, jnp.maximum(2 * m - 2 - lag, 0))
             + jnp.float32(1.0))
-    valid = lag < 2 * m - 1
-    return jnp.where(valid, cor / norm, NEG)
+    return jnp.where(lag < 2 * m - 1, cor_raw[..., : 2 * N - 1] / norm, NEG)
 
 
 def _top_lags(cfg, cor):
     """Descending value, ties by descending lag (reference order,
     scan/correlate.top_lags).  A stable sort is required: lax.top_k's
-    tie order is unspecified on TPU and varies across compilations."""
+    tie order is unspecified and can vary across compilations."""
     rev = cor[..., ::-1]
     idx = jnp.argsort(rev, axis=-1, stable=True,
                       descending=True)[..., : cfg.M].astype(jnp.int32)
@@ -204,7 +213,7 @@ def _window_scan(cfg, dp, W, rcodes, rpos, mlen, lags, lag_ok,
                  z1row=None, z2row=None):
     """Vectorised window-slide over all (k, r, m) lanes at once.
 
-    TPU strategy: every lane's window is the anti-diagonal ip + jp = lag
+    Strategy: every lane's window is the anti-diagonal ip + jp = lag
     of the (region-local) pair matrix, so all positions a lane will ever
     visit are gathered ONCE into [H, K, R, M] diagonal arrays (one big
     gather each); the neighbour values the recurrence needs (ip-1, jp+1)
@@ -231,12 +240,14 @@ def _window_scan(cfg, dp, W, rcodes, rpos, mlen, lags, lag_ok,
 
     # Window members are contiguous runs: idx5 walks forward from base,
     # idx3 walks backward from e := lag - base.  Gathering per (lag,
-    # step) would be a [*,N]@[N,2] one-hot dot (2-wide MXU output = 1/64
-    # utilisation); instead gather ONCE per window START against Hankel
+    # step) would be a [*,N]@[N,2] one-hot dot (a 2-wide output);
+    # instead gather ONCE per window START against Hankel
     # stacks of shifted tables (H static slices), so the extraction is a
     # proper [M,N]@[N,H*2] matmul per region.  In-window reads (i < half)
     # always land inside [0, mlen) so the zero padding is never consumed.
-    if N <= 256 and jax.default_backend() != "cpu":
+    # A bf16 one-hot selects values <= 256 exactly, and a bf16 result
+    # holds them exactly (the CPU backend has no bf16 x bf16 -> f32 dot).
+    if N <= 256:
         dt, prec = jnp.bfloat16, jax.lax.Precision.DEFAULT
     else:
         dt, prec = jnp.float32, jax.lax.Precision.HIGHEST
@@ -252,9 +263,9 @@ def _window_scan(cfg, dp, W, rcodes, rpos, mlen, lags, lag_ok,
     oh5 = (base[..., None] == nn).astype(dt)               # [K,R,M,N]
     oh3 = ((lag - base)[..., None] == nn).astype(dt)
     d5 = jnp.einsum('...mn,...hnt->h...mt', oh5, Sf, precision=prec,
-                    preferred_element_type=jnp.float32)
+                    preferred_element_type=dt)
     d3 = jnp.einsum('...mn,...hnt->h...mt', oh3, Sb, precision=prec,
-                    preferred_element_type=jnp.float32)
+                    preferred_element_type=dt)
     c5 = d5[..., 0].astype(jnp.int32)
     p5 = d5[..., 1].astype(jnp.int32)
     c3 = d3[..., 0].astype(jnp.int32)
@@ -400,6 +411,49 @@ def _window_scan(cfg, dp, W, rcodes, rpos, mlen, lags, lag_ok,
     return st
 
 
+def scan_tables(cfg, dp, W, rcodes, rpos, mlen, z1row, z2row, path,
+                active=None, interpret=False):
+    """Correlation, top lags and per-lag window-scan results of one
+    sequence's regions, as the fold step consumes them.
+
+    path: 'wavefront' (engine/wavefront.py; `interpret` runs its kernel
+    through the Pallas interpreter) or 'fft' (_correlate + _window_scan).  Returns (cor, lags, lvals,
+    lag_ok, ws); lag_ok also masks beam rows that are not `active`."""
+    N = cfg.N
+    if path == "wavefront":
+        tabs = wavefront_tables(cfg, dp, W, rcodes, rpos, mlen, z1row,
+                                z2row, interpret=interpret)
+        cor = _normalise(tabs["cor_raw"], mlen, N)
+    else:
+        cor = _correlate(cfg, W, rcodes, mlen, _weights_integral(cfg))
+    lags, lvals = _top_lags(cfg, cor)
+    lag_ok = (lvals > NEG / 2) & (mlen[:, :, None] >= 2)
+    if active is not None:
+        lag_ok = lag_ok & active[:, None, None]
+    if path != "wavefront":
+        ws = _window_scan(cfg, dp, W, rcodes, rpos, mlen, lags, lag_ok,
+                          z1row=z1row, z2row=z2row)
+        return cor, lags, lvals, lag_ok, dict(ws, hd1=ws["best_h1"],
+                                              hd2=ws["best_h2"])
+    # one one-hot contraction gathers all eight per-lag fields at the
+    # selected lags (hash deltas in exact 16-bit halves)
+    u32t = lambda x: x.astype(jnp.uint32)
+    i32t = lambda x: x.astype(jnp.int32)
+    tab8 = jnp.stack(
+        [tabs["max_nb"], tabs["max_i"], tabs["max_j"], tabs["best_sE"],
+         i32t(u32t(tabs["hd1"]) & 0xFFFF), i32t(u32t(tabs["hd1"]) >> 16),
+         i32t(u32t(tabs["hd2"]) & 0xFFFF), i32t(u32t(tabs["hd2"]) >> 16)],
+        axis=-1)
+    oh = (lags[..., None] == jnp.arange(2 * N, dtype=jnp.int32)
+          ).astype(jnp.float32)
+    g8 = jnp.einsum('...mx,...xt->...mt', oh, tab8.astype(jnp.float32),
+                    precision=jax.lax.Precision.HIGHEST).astype(jnp.int32)
+    ws = dict(max_nb=g8[..., 0], max_i=g8[..., 1], max_j=g8[..., 2],
+              best_sE=g8[..., 3], hd1=(g8[..., 5] << 16) | g8[..., 4],
+              hd2=(g8[..., 7] << 16) | g8[..., 6])
+    return cor, lags, lvals, lag_ok, ws
+
+
 def _children(cfg, pt, loops, rorder, C):
     """Per (k, r): the enclosing loop's direct children, ascending, with
     prefix sums of their multiloop-stem terms and spans.
@@ -450,15 +504,15 @@ def _candidate_delta(cfg, dp, codes, n, keys, pt, loops, rorder,
                      rpos, mlen, ws, lags, C=48):
     """Exact incremental integer dE for every candidate [K,R,M].
 
-    TPU formulation: the (r, m) candidate lanes are first COMPACTED to
+    Formulation: the (r, m) candidate lanes are first COMPACTED to
     [K, CC] slots, CC = min(2N, R*M).  Per region only
     v_r = min(M, 2*mlen_r - 1) lags are real, and top_lags sorts the
     NEG-filled invalid lags last so they form a prefix in m; regions
     partition the <= N unpaired positions, so sum_r v_r < 2N always —
     the compaction loses nothing.  Every per-candidate table gather
     then runs at CC lanes instead of R*M (6.25x fewer at the bench
-    config) as stacked-table one-hot einsums (computed-index gathers
-    are pathologically slow on TPU, engine/lookup.py); gathers sharing
+    config) as stacked-table one-hot einsums (engine/lookup.py's
+    formulation); gathers sharing
     an index array share one one-hot.  Results scatter back to [K,R,M];
     lanes outside the compaction are exactly the lag_ok=False lanes the
     caller's masking already ignores.
@@ -765,12 +819,11 @@ class FoldEngine:
         self.dp = device_params(cfg.temp, max_len=cfg.N)
         self.W = weight_matrix(cfg.gc_wei, cfg.au_wei, cfg.gu_wei)
         self.integral = _weights_integral(cfg)
-        # Pallas wavefront kernel: TPU only, lane-aligned N, integral
-        # weights (non-integral correlation sums round differently from
-        # the scipy-parity FFT, so those configs keep the FFT path)
-        self.use_wavefront = (jax.default_backend() != "cpu"
-                              and cfg.N % 128 == 0 and cfg.N <= 2048
-                              and self.integral)
+        # correlation + window scan: the lag-indexed wavefront kernel on
+        # the GPU within its shape limits, else the FFT correlation and
+        # the Hankel-stack scan
+        self.scan_path = ("wavefront" if jax.default_backend() == "gpu"
+                          and supported(cfg, self.integral) else "fft")
         rng = np.random.default_rng(0xA5F7)
         z1 = rng.integers(1, 2**32 - 1, cfg.N + 1, dtype=np.uint64).astype(np.uint32)
         z2 = rng.integers(1, 2**32 - 1, cfg.N + 1, dtype=np.uint64).astype(np.uint32)
@@ -890,6 +943,27 @@ class FoldEngine:
         h2 = (v * self.Z2[: self.cfg.N]).sum(axis=-1)
         return h1, h2
 
+    def region_layout(self, codes, n, pt, rorder):
+        """One sequence's loops and ordered regions: analyze_pt per beam
+        row, the compacted region rows (rpos/rcodes, N-padded), each
+        position's region slot and local index, and the hash
+        coefficients Z[rpos] of the incremental candidate hashes."""
+        cfg, dp, N = self.cfg, self.dp, self.cfg.N
+        with assume_batched():
+            loops = jax.vmap(lambda p: analyze_pt(dp, codes, p, n))(pt)
+        rpos, rloc, rslot, mlen = _regions(cfg, pt, loops["enclose"],
+                                           rorder, n)
+        rcodes = jnp.where(rpos < N,
+                           flat_lookup(codes, jnp.clip(rpos, 0, N - 1)), 0)
+        # 16-bit-half lookups, recombined bitwise
+        rposc = jnp.clip(rpos, 0, N)
+        z1row = ((flat_lookup(self.Z1hi, rposc) << 16)
+                 | flat_lookup(self.Z1lo, rposc))
+        z2row = ((flat_lookup(self.Z2hi, rposc) << 16)
+                 | flat_lookup(self.Z2lo, rposc))
+        return dict(loops=loops, rpos=rpos, rloc=rloc, rslot=rslot,
+                    mlen=mlen, rcodes=rcodes, z1row=z1row, z2row=z2row)
+
     # ---------------- one step for one sequence (vmapped over batch)
     def _seq_step(self, codes, n, pt, energy, active, rorder,
                   seen_h1, seen_h2, seen_cnt, done, cplx_dropped,
@@ -908,79 +982,25 @@ class FoldEngine:
 
         keys = (_kmer_keys(codes, 5), _kmer_keys(codes, 6), _kmer_keys(codes, 8))
 
-        # ---- analyze beam
-        from rafft_tpu.engine.lookup import assume_batched
-        with assume_batched():
-            loops = jax.vmap(lambda p: analyze_pt(dp, codes, p, n))(pt)
-        enclose = loops["enclose"]
-        c = _cut_("analyze", enclose, loops["mls"], loops["loop_e"],
+        lay = self.region_layout(codes, n, pt, rorder)
+        loops = lay["loops"]
+        c = _cut_("analyze", loops["enclose"], loops["mls"], loops["loop_e"],
                   loops["branches"], loops["exts"])
         if c is not None:
             return c
-
-        rpos, rloc, rslot, mlen = _regions(cfg, pt, enclose, rorder, n)
-        rcodes = jnp.where(rpos < N,
-                           flat_lookup(codes, jnp.clip(rpos, 0, N - 1)), 0)
-        # hash coefficients Z[rpos] for the incremental candidate hash
-        # deltas (16-bit-half lookups; recombined bitwise)
-        rposc = jnp.clip(rpos, 0, N)
-        z1row = ((flat_lookup(self.Z1hi, rposc) << 16)
-                 | flat_lookup(self.Z1lo, rposc))
-        z2row = ((flat_lookup(self.Z2hi, rposc) << 16)
-                 | flat_lookup(self.Z2lo, rposc))
+        rpos, rloc, rslot, mlen = (lay["rpos"], lay["rloc"], lay["rslot"],
+                                   lay["mlen"])
+        rcodes, z1row, z2row = lay["rcodes"], lay["z1row"], lay["z2row"]
         c = _cut_("regions", rpos, rloc, rslot, mlen, rcodes)
         if c is not None:
             return c
 
-        if self.use_wavefront:
-            # fused Pallas wavefront: correlation + window slide in one
-            # anti-diagonal sweep (engine/wavefront.py), bit-identical to
-            # the _correlate/_window_scan pair below
-            from rafft_tpu.engine.wavefront import wavefront_tables
-            tabs = wavefront_tables(cfg, dp, self.W, rcodes, rpos, mlen,
-                                    z1row=z1row, z2row=z2row)
-            lagv = jnp.arange(2 * N - 1, dtype=jnp.int32)
-            m_ = mlen[..., None]
-            norm = (jnp.minimum(lagv, jnp.maximum(2 * m_ - 2 - lagv, 0))
-                    + jnp.float32(1.0))
-            cor = jnp.where(lagv < 2 * m_ - 1,
-                            tabs["cor_raw"][..., : 2 * N - 1] / norm, NEG)
-            lags, lvals = _top_lags(cfg, cor)
-            lag_ok = (lvals > NEG / 2) & (mlen[:, :, None] >= 2) \
-                & active[:, None, None]
-            c = _cut_("corr", lags, lvals, lag_ok)
-            if c is not None:
-                return c
-            u32t = lambda x: x.astype(jnp.uint32)
-            i32t = lambda x: x.astype(jnp.int32)
-            tab8 = jnp.stack(
-                [tabs["max_nb"], tabs["max_i"], tabs["max_j"],
-                 tabs["best_sE"],
-                 i32t(u32t(tabs["hd1"]) & 0xFFFF),
-                 i32t(u32t(tabs["hd1"]) >> 16),
-                 i32t(u32t(tabs["hd2"]) & 0xFFFF),
-                 i32t(u32t(tabs["hd2"]) >> 16)], axis=-1)
-            oh = (lags[..., None] == jnp.arange(2 * N, dtype=jnp.int32)
-                  ).astype(jnp.float32)
-            g8 = jnp.einsum('...mx,...xt->...mt', oh,
-                            tab8.astype(jnp.float32),
-                            precision=jax.lax.Precision.HIGHEST
-                            ).astype(jnp.int32)
-            ws = dict(max_nb=g8[..., 0], max_i=g8[..., 1],
-                      max_j=g8[..., 2], best_sE=g8[..., 3],
-                      hd1=(g8[..., 5] << 16) | g8[..., 4],
-                      hd2=(g8[..., 7] << 16) | g8[..., 6])
-        else:
-            cor = _correlate(cfg, self.W, rcodes, mlen, self.integral)
-            lags, lvals = _top_lags(cfg, cor)
-            lag_ok = (lvals > NEG / 2) & (mlen[:, :, None] >= 2) \
-                & active[:, None, None]
-            c = _cut_("corr", lags, lvals, lag_ok)
-            if c is not None:
-                return c
-            ws = _window_scan(cfg, dp, self.W, rcodes, rpos, mlen, lags,
-                              lag_ok, z1row=z1row, z2row=z2row)
-            ws = dict(ws, hd1=ws["best_h1"], hd2=ws["best_h2"])
+        cor, lags, lvals, lag_ok, ws = scan_tables(
+            cfg, dp, self.W, rcodes, rpos, mlen, z1row, z2row,
+            self.scan_path, active=active)
+        c = _cut_("corr", lags, lvals, lag_ok)
+        if c is not None:
+            return c
         c = _cut_("wscan", ws["max_nb"], ws["max_i"], ws["max_j"],
                   ws["best_sE"])
         if c is not None:
@@ -1019,7 +1039,6 @@ class FoldEngine:
         c = _cut_("cplx_pt", cand_pts)
         if c is not None:
             return c
-        from rafft_tpu.engine.lookup import assume_batched
         with assume_batched():
             cand_E = jax.vmap(lambda p: eval_pt(dp, codes, p, n))(cand_pts)
         parent_E = row_lookup(energy, ck)
@@ -1611,8 +1630,8 @@ class FoldEngine:
 
     def _steps_impl(self, state, max_iters: int):
         """Up to max_iters fold steps in ONE device program (early exit
-        when the whole batch is done).  Host round-trips cost ~27 ms on
-        this backend, so per-step polling is folded into the launch."""
+        when the whole batch is done), so per-step polling costs no host
+        round trip."""
         def cond(c):
             it, st = c
             return (it < max_iters) & ~st["done"].all()
@@ -1641,8 +1660,8 @@ class FoldEngine:
     def run(self, seqs, collect_traj=False):
         state = self.init_state(seqs)
         if not collect_traj:
-            # whole fold in one device program (host round-trips cost
-            # ~27 ms on this backend)
+            # whole fold in one device program (no host round trip per
+            # step)
             state = self._steps(state, self.cfg.max_steps)
             return self._beams(state, len(seqs)), state
         traj = []
@@ -1678,7 +1697,7 @@ class FoldEngine:
 def fold_one(sequence, nb_mode=100, max_stack=1, max_branch=100, min_hp=3,
              min_nrj=0.0, traj=False, temp=37.0, gc_wei=3.0, au_wei=2.0,
              gu_wei=1.0):
-    """Single-sequence convenience API on the TPU engine (reference
+    """Single-sequence convenience API on the batched engine (reference
     fold() signature)."""
     from rafft_tpu.struct import Structure
 

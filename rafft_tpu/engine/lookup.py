@@ -1,11 +1,9 @@
-"""TPU-fast table lookups.
+"""Table lookups as one-hot contractions or gathers.
 
-On this TPU, XLA lowers a gather whose indices are computed on-device to
-a scalar-ish custom fusion running at ~1.2 GB/s — three orders of
-magnitude below elementwise throughput (measured: 83M-index gather from
-a 25-entry table = 810 ms; the same lookup as a one-hot einsum = tens of
-ms, because XLA fuses the iota-compare one-hot into the dot and the MXU
-does the selection).  These helpers pick the fast formulation by static
+The engine was first tuned on a backend whose computed-index gathers
+were far slower than a one-hot contraction, where XLA fuses the
+iota-compare one-hot into the dot.  Whether that trade holds on the GPU
+is not measured yet.  These helpers pick the formulation by static
 shape:
 
 * one-hot einsum for small tables x large index sets (exact: the
@@ -21,8 +19,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-# one-hot einsum pays off when the index set is large and the table is
-# small; thresholds from microbenchmarks (tools/microbench_gather.py)
+# one-hot einsum when the index set is large and the table is small
 _MIN_IDX = 1 << 14
 _MAX_TAB = 2048
 
@@ -63,9 +60,9 @@ def flat_lookup(flat, lin):
     if _nelem(lin) < _MIN_IDX or n > _MAX_TAB:
         return flat[lin]
     oh = (lin[..., None] == jnp.arange(n, dtype=lin.dtype)).astype(jnp.float32)
-    # HIGHEST precision is required for exactness: the default f32 dot
-    # on TPU rounds operands through bf16, corrupting any value that
-    # needs more than 8 mantissa bits (e.g. 751 -> 752)
+    # HIGHEST precision is required for exactness: a default-precision
+    # f32 dot may round operands through bf16 or TF32, corrupting any
+    # value that needs more mantissa bits (e.g. 751 -> 752)
     out = jnp.einsum('...n,n->...', oh, flat.astype(jnp.float32),
                      precision=jax.lax.Precision.HIGHEST)
     return out.astype(flat.dtype)
@@ -83,7 +80,7 @@ def table_lookup(table, *idx):
 def batched_taa(tab, idx):
     """take_along_axis(tab, idx, axis=-1) where tab is [..., X] and idx
     is [..., M] with the same leading dims — as a one-hot einsum when
-    the index set is large (same TPU gather pathology as flat_lookup).
+    the index set is large (as flat_lookup).
 
     Exact for integer values |v| < 2^24 and any f32 values (selection
     multiplies by exactly 0.0/1.0)."""
@@ -91,7 +88,7 @@ def batched_taa(tab, idx):
     if _nelem(idx) < _MIN_IDX or X > _MAX_TAB:
         return jnp.take_along_axis(tab, idx, axis=-1)
     oh = (idx[..., None] == jnp.arange(X, dtype=idx.dtype)).astype(jnp.float32)
-    # HIGHEST: see flat_lookup — default TPU f32 dots truncate to bf16
+    # HIGHEST: see flat_lookup — default-precision f32 dots round
     out = jnp.einsum('...mx,...x->...m', oh, tab.astype(jnp.float32),
                      precision=jax.lax.Precision.HIGHEST)
     return out.astype(tab.dtype)
@@ -100,8 +97,7 @@ def batched_taa(tab, idx):
 def row_lookup(tab, idx):
     """tab[idx] where idx is 1-D row indices into tab's leading axis —
     as a one-hot einsum over the (small) leading axis when the row count
-    is small and many rows are selected (TPU row gathers with computed
-    indices are slow like everything else)."""
+    is small and many rows are selected (as flat_lookup)."""
     Kn = tab.shape[0]
     if idx.shape[0] * Kn < (1 << 12) or Kn > 256:
         return tab[idx]
@@ -145,21 +141,3 @@ def row_col_lookup(tab2d, row, col):
                      precision=jax.lax.Precision.HIGHEST)
     return out.astype(tab2d.dtype)
 
-
-def diag_extract(tabs, idx):
-    """Gather several [..., N] tables at a shared large index array.
-
-    tabs: [..., N, T] stacked values (all with |v| <= 2^24 exactly
-    representable; use small ints), idx: [H, ..., M] indices into N with
-    leading broadcast dim H.  Returns [H, ..., M, T] f32."""
-    N = tabs.shape[-2]
-    # bf16 one-hot selection is exact only for values <= 256 (8
-    # significand bits); larger position values (N > 256 buckets) and
-    # the CPU backend (no bf16 dot) use an exact f32 HIGHEST dot
-    if N <= 256 and jax.default_backend() != "cpu":
-        dt, prec = jnp.bfloat16, jax.lax.Precision.DEFAULT
-    else:
-        dt, prec = jnp.float32, jax.lax.Precision.HIGHEST
-    oh = (idx[..., None] == jnp.arange(N, dtype=idx.dtype)).astype(dt)
-    return jnp.einsum('h...mn,...nt->h...mt', oh, tabs.astype(dt),
-                      precision=prec, preferred_element_type=jnp.float32)

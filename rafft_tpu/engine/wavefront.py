@@ -1,33 +1,31 @@
-"""Anti-diagonal wavefront window-scan (Pallas TPU kernel).
+"""Anti-diagonal wavefront window scan: a Pallas kernel for the GPU.
 
-A TPU-native replacement for the per-(lag, step) window slide of the
-reference (/root/reference/rafft/rafft.py:36-83).  Key observation: the
-cells a window slide ever visits are exactly the cells of the
-region-local pair matrix (ip, jp), each belonging to the anti-diagonal
-lag = ip + jp, and the reference recurrence depends only on the previous
-cell of the SAME diagonal, (ip-1, jp+1).  Sweeping rows ip = 0..m-1 with
-a state vector indexed by jp therefore advances EVERY lag's recurrence
-simultaneously with one lane-shift per row:
+RAFFT's stem search slides a window along every correlation lag of a
+region.  The cells a slide visits are the cells (ip, jp) of the
+region-local pair matrix, cell (ip, jp) belongs to lag ip + jp, and the
+recurrence of one lag depends only on that lag's previous cell
+(ip - 1, jp + 1).  A sweep over rows ip therefore advances every lag at
+once.  The state is indexed by lag, so it never moves: on row ip, lag L
+reads its 3' base at jp = L - ip, a contiguous slice of the region row
+at offset -ip, and its 5' base at ip, one scalar shared by all lags.
+The values read on the previous row are the (ip - 1, jp + 1) neighbours
+the recurrence needs, so they ride along as carries.
 
-    state_ip[jp] = f(state_{ip-1}[jp+1], cell(ip, jp))
+The correlation comes free.  The pair-weight matrix is symmetric, so a
+lag's full anti-diagonal sum is twice its window's sum less the centre
+cell.  For integral weights that is an exact small-integer sum in f32,
+equal to the rounded FFT correlation of fold_jax._correlate.
 
-This eliminates the [n_lags, n_steps] window materialisation entirely
-(the dominant memory and time cost of the gather-based formulation) and
-computes the raw correlation for free: cor[lag] is just the running sum
-of pair weights along the same diagonal, so the FFT correlation
-(utils.py:115-122 in the reference) collapses into the same sweep for
-integral pair weights (the default 3/2/1), bit-identical to the
-rounded-FFT values because both are exact small-integer sums.
+The kernel runs on the Triton route.  One program owns one (region,
+block of BL lags) pair, keeps its state in registers and loops only over
+the rows its lags' windows cover; empty and one-base regions exit at
+once.  Off the GPU the engine keeps the FFT + window scan, and the tests
+run this kernel through the Pallas interpreter.
 
-Per-lag finals are collected without unaligned lane writes (Mosaic
-requires lane-slice starts to be 128-multiples): lag L < m finishes at
-row L, lane 0, so lane 0 is pushed into a shifting collector each row;
-lags >= m-1 finish in the final row's state vector.  The two pieces are
-stitched with dynamic rolls at the end.
-
-Semantics are bit-identical to fold_jax._window_scan (same f32 ops in
-the same order per lag); `tests/test_wavefront.py` asserts equality
-against that reference implementation.
+Semantics equal fold_jax._window_scan on every lag it consumes: the
+same f32 and int32 operations in the same order per lag.  There is no
+matrix product anywhere, so TF32 cannot arise.  `tests/test_wavefront.py`
+asserts equality against that formulation.
 """
 
 from __future__ import annotations
@@ -38,253 +36,205 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+# lags per kernel program: one f32/int32 lane per thread at 4 warps
+BL = 128
 
 
-def _kernel(mmax_ref, rcodes_ref, rpos_ref, mlen_ref, z1_ref, z2_ref,
-            cor_ref, mnb_ref, mi_ref, mj_ref, msE_ref, hd1_ref, hd2_ref,
-            # scratch
-            tot_s, tmp_s, sE_s, cor_s, ms_s, nb_s, mi_s, mj_s, bsE_s,
-            hd1_s, hd2_s, bh1_s, bh2_s,
-            c_cor, c_nb, c_mi, c_mj, c_sE, c_h1, c_h2,
-            *, R, N, min_hp, Wn, PTn, STn):
-    """One (k) program: wavefront sweep over all R regions of beam row k.
+def supported(cfg, integral: bool) -> bool:
+    """Shape limits of the lag-indexed wavefront.
 
-    Wn/PTn/STn are host constants (pair weights, pair types, stack
-    energies) baked into select chains.  z1/z2 are the per-position
-    Zobrist-style hash coefficients Z[rpos] (int32 bit patterns of
-    uint32): the sweep accumulates, per candidate run, the exact hash
-    delta its stem would apply to the parent pair-table hash
-    (fold_jax._hash), so combination hashes compose arithmetically and
-    the engine never materialises combination pair tables.
-    """
-    mmax = mmax_ref[pl.program_id(0), 0]
-    rcodes = rcodes_ref[0]                       # [R, N] i32
-    rpos = rpos_ref[0]                           # [R, N] i32
-    mlen = mlen_ref[0].astype(jnp.int32)         # [R, N] (broadcast copies)
-    z1row = z1_ref[0]                            # [R, N] i32 = Z1[rpos]
-    z2row = z2_ref[0]                            # [R, N] i32 = Z2[rpos]
+    Lag blocks are BL wide, so 2N must hold whole blocks and the region
+    row padding (N on each side) must cover a block's reach: N a power
+    of two and at least BL.  Non-integral pair weights sum differently
+    from the FFT correlation they must match, so they keep the FFT
+    path."""
+    N = cfg.N
+    return integral and N >= BL and (N & (N - 1)) == 0
 
-    lane = jax.lax.broadcasted_iota(jnp.int32, (R, N), 1)
-    # constants along the sweep
-    c3 = rcodes
-    p3 = rpos
-    c3p = jnp.where(lane == N - 1, 0,
-                    pltpu.roll(rcodes, N - 1, axis=1))   # rcodes[jp+1]
-    p3p = jnp.where(lane == N - 1, -9,
-                    pltpu.roll(rpos, N - 1, axis=1))     # rpos[jp+1]
 
-    for ref in (tot_s, cor_s, ms_s):
-        ref[...] = jnp.zeros((R, N), jnp.float32)
-    for ref in (tmp_s, sE_s, nb_s, mi_s, mj_s, bsE_s,
-                hd1_s, hd2_s, bh1_s, bh2_s):
-        ref[...] = jnp.zeros((R, N), jnp.int32)
-    c_cor[...] = jnp.zeros((R, N), jnp.float32)
-    for ref in (c_nb, c_mi, c_mj, c_sE, c_h1, c_h2):
-        ref[...] = jnp.zeros((R, N), jnp.int32)
+def _select(lin, table, default, dtype):
+    """table[lin] as a chain of selects over the table's nonzero
+    entries (host constants)."""
+    out = jnp.full(jnp.shape(lin), default, dtype)
+    for v, x in enumerate(np.asarray(table).reshape(-1)):
+        if x != 0:
+            out = jnp.where(lin == v, dtype(x), out)
+    return out
 
-    def sel_chain(lin, table, default, out_dtype):
-        out = jnp.full(lin.shape, default, out_dtype)
-        for v, x in enumerate(np.asarray(table).reshape(-1)):
-            if x != 0:
-                out = jnp.where(lin == v, out_dtype(x), out)
-        return out
+
+def _stack(A, Bt, ST):
+    """ST[A, Bt] for pair types A, Bt in 1..6 (0 otherwise)."""
+    g = jnp.zeros(jnp.shape(Bt), jnp.int32)
+    for a in range(1, 7):
+        ga = jnp.zeros(jnp.shape(Bt), jnp.int32)
+        for b in range(1, 7):
+            ga = jnp.where(Bt == b, jnp.int32(int(ST[a, b])), ga)
+        g = jnp.where(A == a, ga, g)
+    return g
+
+
+def _lag_geometry(lag, m):
+    """Window start row, window length and validity of each lag."""
+    base = jnp.maximum(lag - m + 1, 0)
+    width = jnp.where(lag < m, lag + 1, 2 * m - lag - 1)
+    half = width // 2 + width % 2
+    return base, half, lag < 2 * m - 1
+
+
+_INT_FIELDS = ("tmp", "sE", "hd1", "hd2", "nb", "mi", "mj", "bsE", "bh1",
+               "bh2", "pk3")
+_F32_FIELDS = ("tot", "ms", "cor")
+
+
+def _init_state(shape):
+    st = {k: jnp.zeros(shape, jnp.int32) for k in _INT_FIELDS}
+    st.update({k: jnp.zeros(shape, jnp.float32) for k in _F32_FIELDS})
+    return st
+
+
+def _row(st, ip, lag, base, half, valid, pk5, pk5m, z15, z25, pk3, z13,
+         z23, *, min_hp, Wn, PTn, STn):
+    """Advance every lag by row ip.
+
+    pk* are packed (rpos << 3 | code) region entries: pk5 at ip, pk5m at
+    ip - 1, pk3 at jp = lag - ip; st["pk3"] holds the previous row's pk3,
+    i.e. the entry at jp + 1.  z1*/z2* are the hash coefficients Z[rpos]
+    at ip (z*5) and jp (z*3).  Only cells inside a lag's window change
+    its state, as in fold_jax._window_scan."""
+    i = ip - base
+    act = valid & (i >= 0) & (i < half)
+    c5, p5 = pk5 & 7, pk5 >> 3
+    c5m, p5m = pk5m & 7, pk5m >> 3
+    c3, p3 = pk3 & 7, pk3 >> 3
+    c3p, p3p = st["pk3"] & 7, st["pk3"] >> 3
+
+    w = _select(c5 * 5 + c3, Wn, 0, jnp.float32)
+    contig = (i > 0) & (p5 - p5m == 1) & (p3p - p3 == 1)
+    tot_p = st["tot"]
+    tot = jnp.where(contig, (tot_p + w) * w, w)
+    tmp = jnp.where(tot == 0, 0, st["tmp"] + 1)
+    # stack energy between the outer pair (ip-1, jp+1) and (ip, jp)
+    g = _stack(_select(c5m * 5 + c3p, PTn, 7, jnp.int32),
+               _select(c3 * 5 + c5, PTn, 7, jnp.int32), STn)
+    in_run = (tot != 0) & (tot_p != 0) & contig
+    sE = jnp.where((tot == 0) | (tot_p == 0), 0,
+                   jnp.where(in_run, st["sE"] + g, st["sE"]))
+    # hash delta of pairing (p5, p3): Z[p5]*(p3+1) + Z[p3]*(p5+1),
+    # int32 wraparound == uint32 arithmetic mod 2^32
+    hd1 = jnp.where(tot == 0, 0, st["hd1"] + (z15 * (p3 + 1) + z13 * (p5 + 1)))
+    hd2 = jnp.where(tot == 0, 0, st["hd2"] + (z25 * (p3 + 1) + z23 * (p5 + 1)))
+    upd = act & ((p3 - p5) > min_hp) & (tot >= st["ms"])
+
+    def keep(new, old):
+        return jnp.where(act, new, old)
+
+    def best(new, old):
+        return jnp.where(upd, new, old)
+
+    return dict(
+        tot=keep(tot, tot_p), tmp=keep(tmp, st["tmp"]),
+        sE=keep(sE, st["sE"]), hd1=keep(hd1, st["hd1"]),
+        hd2=keep(hd2, st["hd2"]),
+        ms=best(tot, st["ms"]), nb=best(tmp, st["nb"]),
+        mi=best(ip, st["mi"]), mj=best(lag - ip, st["mj"]),
+        bsE=best(sE, st["bsE"]), bh1=best(hd1, st["bh1"]),
+        bh2=best(hd2, st["bh2"]),
+        cor=st["cor"] + jnp.where(act, jnp.where(2 * ip == lag, w, 2 * w),
+                                  0.0),
+        pk3=pk3)
+
+
+_OUT = ("cor", "nb", "mi", "mj", "bsE", "bh1", "bh2")
+
+
+def _kernel(m_ref, pk_ref, z1_ref, z2_ref, *out_refs, N, consts):
+    """One program: region g = program_id(0), lags [l0, l0 + BL).
+
+    Region rows are padded by N on each side, so every slice a block
+    reads is in bounds and needs no mask."""
+    m = m_ref[0]
+    l0 = pl.program_id(1) * BL
+    lag = l0 + jax.lax.broadcasted_iota(jnp.int32, (BL,), 0)
+    base, half, valid = _lag_geometry(lag, m)
+    # rows covered by the block's windows: from the first lag's window
+    # start to the end of the last valid lag's window (monotone in lag)
+    l_hi = jnp.minimum(l0 + BL - 1, 2 * m - 2)
+    b_hi = jnp.maximum(l_hi - m + 1, 0)
+    w_hi = jnp.where(l_hi < m, l_hi + 1, 2 * m - l_hi - 1)
+    ip_lo = jnp.maximum(l0 - m + 1, 0)
+    ip_hi = jnp.where((m >= 2) & (l0 <= l_hi),
+                      b_hi + w_hi // 2 + w_hi % 2, ip_lo)
 
     def body(ip, carry):
-        c5m, p5m = carry
-        sel = (lane == ip)
-        c5 = jnp.sum(jnp.where(sel, rcodes, 0), axis=1, keepdims=True)
-        p5 = jnp.sum(jnp.where(sel, rpos, 0), axis=1, keepdims=True)
-        z1_5 = jnp.sum(jnp.where(sel, z1row, 0), axis=1, keepdims=True)
-        z2_5 = jnp.sum(jnp.where(sel, z2row, 0), axis=1, keepdims=True)
+        st, pk5m = carry
+        pk5 = pk_ref[N + ip]
+        off = N + l0 - ip
+        st = _row(st, ip, lag, base, half, valid, pk5, pk5m,
+                  z1_ref[N + ip], z2_ref[N + ip], pk_ref[pl.ds(off, BL)],
+                  z1_ref[pl.ds(off, BL)], z2_ref[pl.ds(off, BL)], **consts)
+        return st, pk5
 
-        def shift(ref, fill):
-            x = pltpu.roll(ref[...], N - 1, axis=1)
-            return jnp.where(lane == N - 1, fill, x)
-
-        tot_p = shift(tot_s, jnp.float32(0))
-        tmp_p = shift(tmp_s, jnp.int32(0))
-        sE_p = shift(sE_s, jnp.int32(0))
-        cor_p = shift(cor_s, jnp.float32(0))
-        ms_p = shift(ms_s, jnp.float32(0))
-        nb_p = shift(nb_s, jnp.int32(0))
-        mi_p = shift(mi_s, jnp.int32(0))
-        mj_p = shift(mj_s, jnp.int32(0))
-        bsE_p = shift(bsE_s, jnp.int32(0))
-        hd1_p = shift(hd1_s, jnp.int32(0))
-        hd2_p = shift(hd2_s, jnp.int32(0))
-        bh1_p = shift(bh1_s, jnp.int32(0))
-        bh2_p = shift(bh2_s, jnp.int32(0))
-
-        # cell quantities (all [R, N])
-        lag = lane + ip
-        m = mlen
-        w = sel_chain(c5 * 5 + c3, Wn, jnp.float32(0), jnp.float32)
-        contig = (ip > jnp.maximum(lag - m + 1, 0)) \
-            & (p5 - p5m == 1) & (p3p - p3 == 1)
-        tot = jnp.where(contig, (tot_p + w) * w, w)
-        tmp = jnp.where(tot == 0, 0, tmp_p + 1)
-        # stack energy between outer pair (ip-1, jp+1) and inner (ip, jp)
-        A = sel_chain(c5m * 5 + c3p, PTn, jnp.int32(7), jnp.int32)
-        Bt = sel_chain(c3 * 5 + c5, PTn, jnp.int32(7), jnp.int32)
-        g = jnp.zeros((R, N), jnp.int32)
-        STf = np.asarray(STn)
-        for a_ in range(1, 7):
-            ga = jnp.zeros((R, N), jnp.int32)
-            for b_ in range(1, 7):
-                ga = jnp.where(Bt == b_, jnp.int32(int(STf[a_, b_])), ga)
-            g = jnp.where(A == a_, ga, g)
-        in_run = (tot != 0) & (tot_p != 0) & contig
-        sE = jnp.where((tot == 0) | (tot_p == 0), 0,
-                       jnp.where(in_run, sE_p + g, sE_p))
-        # hash delta of pairing (p5, p3) on an unpaired parent position:
-        # Z[p5]*((p3+2)-1) + Z[p3]*((p5+2)-1), accumulated over exactly
-        # the cells tmp counts (the stem _combo_pt will build); int32
-        # wraparound == uint32 arithmetic mod 2^32
-        z1c = z1_5 * (p3 + 1) + z1row * (p5 + 1)
-        z2c = z2_5 * (p3 + 1) + z2row * (p5 + 1)
-        hd1 = jnp.where(tot == 0, 0, hd1_p + z1c)
-        hd2 = jnp.where(tot == 0, 0, hd2_p + z2c)
-
-        w_width = jnp.where(lag < m, lag + 1, 2 * m - lag - 1)
-        half = w_width // 2 + (w_width % 2)
-        io = ip - jnp.maximum(lag - m + 1, 0)
-        in_win = io < half
-        uo = in_win & ((p3 - p5) > min_hp)
-        upd = uo & (tot >= ms_p)
-
-        ms = jnp.where(upd, tot, ms_p)
-        nb = jnp.where(upd, tmp, nb_p)
-        mi = jnp.where(upd, ip, mi_p)
-        mj = jnp.where(upd, lane, mj_p)
-        bsE = jnp.where(upd, sE, bsE_p)
-        bh1 = jnp.where(upd, hd1, bh1_p)
-        bh2 = jnp.where(upd, hd2, bh2_p)
-        cor = cor_p + w
-
-        tot_s[...] = tot
-        tmp_s[...] = tmp
-        sE_s[...] = sE
-        cor_s[...] = cor
-        ms_s[...] = ms
-        nb_s[...] = nb
-        mi_s[...] = mi
-        mj_s[...] = mj
-        bsE_s[...] = bsE
-        hd1_s[...] = hd1
-        hd2_s[...] = hd2
-        bh1_s[...] = bh1
-        bh2_s[...] = bh2
-
-        # push lane 0 (the cell that FINALISES lag == ip) into collectors
-        def push(cref, sref, dtype):
-            x = pltpu.roll(cref[...], N - 1, axis=1)
-            v = jnp.sum(jnp.where(lane == 0, sref[...],
-                                  jnp.zeros((R, N), dtype)),
-                        axis=1, keepdims=True)
-            cref[...] = jnp.where(lane == N - 1, v, x)
-
-        push(c_cor, cor_s, jnp.float32)
-        push(c_nb, nb_s, jnp.int32)
-        push(c_mi, mi_s, jnp.int32)
-        push(c_mj, mj_s, jnp.int32)
-        push(c_sE, bsE_s, jnp.int32)
-        push(c_h1, bh1_s, jnp.int32)
-        push(c_h2, bh2_s, jnp.int32)
-        return (c5, p5)
-
-    init = (jnp.zeros((R, 1), jnp.int32), jnp.full((R, 1), -9, jnp.int32))
-    jax.lax.fori_loop(0, mmax, body, init)
-
-    # ---- stitch per-lag outputs [R, 2N]
-    # collector lane N-1-t holds lag mmax-1-t  =>  lag L at lane N-mmax+L;
-    # final state lane jp holds lag mmax-1+jp.
-    lag2 = jax.lax.broadcasted_iota(jnp.int32, (R, 2 * N), 1)
-
-    def stitch(out_ref, cref, sref, dtype):
-        low = jnp.concatenate(
-            [cref[...], jnp.zeros((R, N), dtype)], axis=1)
-        low = pltpu.roll(low, jax.lax.rem(mmax + N, 2 * N), axis=1)
-        high = jnp.concatenate(
-            [sref[...], jnp.zeros((R, N), dtype)], axis=1)
-        high = pltpu.roll(high, jax.lax.rem(mmax - 1 + 2 * N, 2 * N),
-                          axis=1)
-        out = jnp.where(lag2 < mmax - 1, low, high)
-        out_ref[0] = jnp.where(lag2 < jnp.maximum(mmax + N - 1, 0), out,
-                               jnp.zeros((R, 2 * N), dtype))
-
-    stitch(cor_ref, c_cor, cor_s, jnp.float32)
-    stitch(mnb_ref, c_nb, nb_s, jnp.int32)
-    stitch(mi_ref, c_mi, mi_s, jnp.int32)
-    stitch(mj_ref, c_mj, mj_s, jnp.int32)
-    stitch(msE_ref, c_sE, bsE_s, jnp.int32)
-    stitch(hd1_ref, c_h1, bh1_s, jnp.int32)
-    stitch(hd2_ref, c_h2, bh2_s, jnp.int32)
+    st, _ = jax.lax.fori_loop(ip_lo, ip_hi, body,
+                              (_init_state((BL,)), jnp.int32(0)))
+    for ref, key in zip(out_refs, _OUT):
+        ref[...] = st[key]
 
 
-@partial(jax.jit, static_argnames=("R", "N", "min_hp", "wn", "ptn", "stn",
-                                   "interpret"))
-def _wavefront_call(rcodes, rpos, mlen, mmax, z1row, z2row, *, R, N, min_hp,
-                    wn, ptn, stn, interpret=False):
-    K = rcodes.shape[0]
-    Wn = np.asarray(wn, np.float32).reshape(5, 5)
-    PTn = np.asarray(ptn, np.int64).reshape(5, 5)
-    STn = np.asarray(stn, np.int64).reshape(8, 8)
-    mlen_b = jnp.broadcast_to(mlen[..., None], (K, R, N)).astype(jnp.int32)
-    kern = partial(_kernel, R=R, N=N, min_hp=min_hp, Wn=Wn, PTn=PTn,
-                   STn=STn)
-    grid = (K,)
-    bs_sc = pl.BlockSpec((K, 1), lambda k: (0, 0),
-                         memory_space=pltpu.SMEM)
-    bs_in = pl.BlockSpec((1, R, N), lambda k: (k, 0, 0),
-                         memory_space=pltpu.VMEM)
-    bs_out = pl.BlockSpec((1, R, 2 * N), lambda k: (k, 0, 0),
-                          memory_space=pltpu.VMEM)
-    out_shapes = tuple(
-        jax.ShapeDtypeStruct((K, R, 2 * N), dt)
-        for dt in (jnp.float32,) + (jnp.int32,) * 6)
-    scratch = ([pltpu.VMEM((R, N), jnp.float32)] * 1
-               + [pltpu.VMEM((R, N), jnp.int32)] * 2
-               + [pltpu.VMEM((R, N), jnp.float32)] * 2
-               + [pltpu.VMEM((R, N), jnp.int32)] * 4
-               + [pltpu.VMEM((R, N), jnp.int32)] * 4    # hd1/hd2/bh1/bh2
-               + [pltpu.VMEM((R, N), jnp.float32)] * 1
-               + [pltpu.VMEM((R, N), jnp.int32)] * 6)
-    return pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[bs_sc, bs_in, bs_in, bs_in, bs_in, bs_in],
-        out_specs=tuple([bs_out] * 7),
-        scratch_shapes=scratch,
-        out_shape=out_shapes,
+def _consts(cfg, dp, W):
+    return dict(min_hp=cfg.min_hp,
+                Wn=np.asarray(W, np.float32).reshape(5, 5),
+                PTn=np.asarray(dp.pair_type).reshape(5, 5),
+                STn=np.asarray(dp.stack).reshape(8, 8))
+
+
+def _tables_kernel(mlen, pk, z1, z2, *, N, consts, interpret):
+    K, R = mlen.shape
+    G, P = K * R, 3 * N
+    row = pl.BlockSpec((None, P), lambda g, j: (g, 0))
+    out = pl.BlockSpec((None, BL), lambda g, j: (g, j))
+    outs = pl.pallas_call(
+        partial(_kernel, N=N, consts=consts),
+        grid=(G, 2 * N // BL),
+        in_specs=[pl.BlockSpec((None, 1), lambda g, j: (g, 0)), row, row,
+                  row],
+        out_specs=[out] * len(_OUT),
+        out_shape=[jax.ShapeDtypeStruct(
+            (G, 2 * N), jnp.float32 if k in _F32_FIELDS else jnp.int32)
+            for k in _OUT],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-    )(mmax[:, None], rcodes, rpos, mlen_b, z1row, z2row)
+        name="wavefront",
+    )(mlen.reshape(G, 1), pk.reshape(G, P), z1.reshape(G, P),
+      z2.reshape(G, P))
+    return [o.reshape(K, R, 2 * N) for o in outs]
 
 
-def wavefront_tables(cfg, dp, W, rcodes, rpos, mlen, z1row=None, z2row=None,
+def wavefront_tables(cfg, dp, W, rcodes, rpos, mlen, z1row, z2row,
                      interpret=False):
     """Per-lag window-scan tables, [K, R, 2N] each.
 
-    Returns dict(cor_raw, max_nb, max_i, max_j, best_sE, hd1, hd2);
-    cor_raw is the UN-normalised correlation (caller divides by the
+    Returns dict(cor_raw, max_nb, max_i, max_j, best_sE, hd1, hd2).
+    cor_raw is the un-normalised correlation (the caller divides by the
     triangle+pad norm); hd1/hd2 are the candidate stems' pair-table hash
-    deltas (uint32 bit patterns in int32).  z1row/z2row are Z[rpos]
-    coefficient tables (zeros if omitted — hd outputs are then unused).
-    Call per batch element (vmap extends the pallas grid).
+    deltas (uint32 bit patterns in int32), from the Z[rpos] coefficient
+    tables z1row/z2row.  rcodes/rpos/mlen/z*row are one sequence's
+    regions, [K, R, N] with rpos N-padded and rcodes 0-padded; vmap adds
+    batch dimensions.
 
-    interpret=True runs the kernel through the Pallas interpreter so the
-    TPU-only path is testable on the CPU suite (tests/test_wavefront.py)."""
-    mmax = jnp.max(mlen, axis=-1).astype(jnp.int32)        # [K]
-    if z1row is None:
-        z1row = jnp.zeros(rpos.shape, jnp.int32)
-    if z2row is None:
-        z2row = jnp.zeros(rpos.shape, jnp.int32)
-    cor, nb, mi, mj, sE, hd1, hd2 = _wavefront_call(
-        rcodes, rpos, mlen, mmax, z1row, z2row,
-        R=cfg.R, N=cfg.N, min_hp=cfg.min_hp,
-        wn=tuple(np.asarray(W, np.float32).reshape(-1).tolist()),
-        ptn=tuple(np.asarray(dp.pair_type).reshape(-1).tolist()),
-        stn=tuple(np.asarray(dp.stack).reshape(-1).tolist()),
-        interpret=interpret)
+    interpret: run the kernel through the Pallas interpreter (CPU tests)
+    instead of compiling it for the GPU."""
+    N = cfg.N
+    assert supported(cfg, True), N
+    pad = ((0, 0), (0, 0), (N, N))
+    pk = jnp.pad(rpos * 8 + rcodes, pad, constant_values=N * 8)
+    z1 = jnp.pad(z1row, pad)
+    z2 = jnp.pad(z2row, pad)
+    consts = _consts(cfg, dp, W)
+    mlen = mlen.astype(jnp.int32)
+    cor, nb, mi, mj, sE, hd1, hd2 = _tables_kernel(
+        mlen, pk, z1, z2, N=N, consts=consts, interpret=interpret)
     return dict(cor_raw=cor, max_nb=nb, max_i=mi, max_j=mj, best_sE=sE,
                 hd1=hd1, hd2=hd2)

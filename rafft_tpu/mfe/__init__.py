@@ -8,7 +8,7 @@ utilities.  Two backends share the calibrated parameter tables:
 * `mfe_fold` — native C++ Zuker DP (rafft_tpu/native/turner_eval.cpp),
   exact integer dekacal arithmetic, O(N^2) memory / O(N^3) time.
 * `rafft_tpu.mfe.mfe_jax.mfe_batch` — batched fixed-shape JAX DP for
-  TPU sweeps (anti-diagonal `lax.scan`), validated against the C++
+  device sweeps (anti-diagonal `lax.scan`), validated against the C++
   backend.
 """
 

@@ -1,6 +1,6 @@
-"""Batched TPU MFE (Zuker) folding — anti-diagonal wavefront DP.
+"""Batched MFE (Zuker) folding on the device — anti-diagonal wavefront DP.
 
-TPU-first replacement for the reference's ViennaRNA `RNA.fold` baseline
+Device replacement for the reference's ViennaRNA `RNA.fold` baseline
 (/root/reference/benchmark_results/src/vrna_mfe.py:24) at sweep scale:
 the O(N^3) Zuker recursion is laid out as a `lax.scan` over the N
 anti-diagonals, each step doing fully-vectorised [P,N] interior-loop
@@ -27,7 +27,7 @@ from rafft_tpu.energy.eval_jax import (device_params, _ptype, _g, _sget,
                                        _hairpin, _int_loop, _ml_stem,
                                        _ext_stem, _kmer_keys)
 
-INF = jnp.int32(1 << 28)
+INF = np.int32(1 << 28)
 MAXLOOP = 30
 
 

@@ -4,7 +4,7 @@
 // injected from Python at init, so the calibrated parameter set is the
 // single source of truth).  Replaces the role of the reference's
 // in-process ViennaRNA C library (rafft/utils.py:135-138) for the
-// sequential engine and for TPU-less environments.
+// sequential engine and for device-less environments.
 //
 // Build: python rafft_tpu/native/build.py   (g++ -O3 -shared -fPIC)
 

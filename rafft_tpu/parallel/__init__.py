@@ -2,9 +2,9 @@
 
 The fold workload is embarrassingly parallel across sequences (the
 reference fans out one subprocess per sequence via multiprocessing.Pool,
-/root/reference/benchmark_results/bench_fft.py:17-21).  The TPU-native
+in its benchmark_results/bench_fft.py:17-21).  The device
 equivalent shards the batch axis of the fold engine across a
 ('data',)-axis device mesh: no collectives are needed in the fold inner
-loop, so throughput scales linearly over ICI-connected chips and across
-hosts (multi-controller jax.distributed).
+loop, so the cards of a host, and hosts (multi-controller
+jax.distributed), each fold their own share of the batch.
 """

@@ -2,9 +2,9 @@
 
 The reference's only cross-machine story is one subprocess per sequence
 on a shared filesystem (benchmark_results/bench_fft.py:7-21).  The
-TPU-native equivalent is JAX's multi-controller runtime: every host
+device equivalent is JAX's multi-controller runtime: every host
 runs the same program, `jax.distributed.initialize` wires the hosts
-into one JAX runtime over DCN, and the fold sweep shards the corpus by
+into one JAX runtime over the network, and the fold sweep shards the corpus by
 process — the fold itself needs no inter-chip communication (SURVEY
 §2.3), so the only collectives are metric reductions at the end.
 

@@ -1,6 +1,6 @@
 """Length-bucketed, data-parallel benchmark sweep.
 
-TPU-native replacement for the reference's per-sequence subprocess fan-out
+Device replacement for the reference's per-sequence subprocess fan-out
 (/root/reference/benchmark_results/bench_fft.py): sequences are bucketed
 by padded length, folded in device-resident batches on a ('data',) mesh,
 scored with the built-in slip-rule scorer, and written as the reference's
@@ -23,14 +23,14 @@ import csv
 import json
 import multiprocessing as mp
 import os
+import sys
 import time
 
 import numpy as np
 
-# no 64 bucket: N=64 is below the Pallas wavefront kernel's lane
-# alignment (N % 128), so it would fall back to the Hankel-stack window
-# scan — measurably SLOWER than folding short sequences at N=128 (20.1
-# vs 23.0 seq/s, bench_full.md r5) and memory-explosive at K=200
+# no 64 bucket: N=64 is below the wavefront's shape limits
+# (engine/wavefront.supported), so it would take the Hankel-stack window
+# scan, whose memory grows as K*R*N^2
 DEFAULT_BUCKETS = (128, 256, 512, 1024, 2048, 4096)
 
 # engine exactness-flag bits -> cause names (fold_jax.FLAG_*)
@@ -46,6 +46,32 @@ def _cpu_refold(task):
     structs = cpu_fold(seq, nb_mode=nb_mode, max_stack=max_stack,
                        max_branch=max_branch)
     return i, [(s.str_struct, s.energy) for s in structs]
+
+
+def _cpu_only():
+    """Pool initializer: keep the worker off the accelerator."""
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    if "jax" in sys.modules:
+        sys.modules["jax"].config.update("jax_platforms", "cpu")
+
+
+def refold_pool(workers):
+    """Process pool for CPU-parity refolds.
+
+    forkserver: the parent holds a live accelerator client by now, and
+    forking such a process can wedge the children.  The fork server and
+    its workers start with JAX_PLATFORMS=cpu, so none of them opens the
+    card even though the server preloads __main__."""
+    ctx = mp.get_context("forkserver")
+    prev = os.environ.get("JAX_PLATFORMS")
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    try:
+        return ctx.Pool(workers, initializer=_cpu_only)
+    finally:
+        if prev is None:
+            del os.environ["JAX_PLATFORMS"]
+        else:
+            os.environ["JAX_PLATFORMS"] = prev
 
 
 def load_benchmark_csv(path):
@@ -66,9 +92,40 @@ def bucket_of(n, buckets):
 
 
 def bucket_batch(batch, N):
-    """Per-bucket batch size: engine working-set scales ~linearly in N,
-    so long buckets shrink the batch to stay inside HBM."""
+    """Per-bucket batch size: the engine's working set grows about
+    linearly in N, so long buckets shrink the batch.  The halving per
+    doubling above N=256 was fitted to the first backend's device
+    memory; it has not been re-tuned for the H100's."""
     return max(1, batch * 256 // max(N, 256))
+
+
+def bucket_config(N, nb_mode=100, max_stack=50, max_branch=1000):
+    """The engine configuration of one length bucket.
+
+    A region of padded length N has at most 2N-1 correlation lags, so
+    top-M lag selection saturates there (the reference just takes every
+    lag when nb_mode exceeds them).
+
+    Combination windows: long sequences carry more regions and more
+    accepted candidates per region, so their per-step combination
+    products are duplicate-heavy and overflow any single window long
+    before the reference's max_branch new-structure cap.  The engine
+    walks the combination space in V-slabs (fold_jax windowed
+    enumeration); long buckets get a deeper window budget."""
+    from rafft_tpu.engine.fold_jax import EngineConfig
+    return EngineConfig(N=N, K=max_stack, M=min(nb_mode, 2 * N - 1),
+                        R=16 if N <= 512 else 32, max_branch=max_branch,
+                        V=4096, W=8 if N <= 128 else 24,
+                        CPLX=512 if N <= 128 else 1024,
+                        S=max(16384, 32 * max_stack))
+
+
+def device_peak_bytes():
+    """Peak bytes in use on the first device so far, or None where the
+    backend keeps no such count."""
+    import jax
+    stats = jax.devices()[0].memory_stats() or {}
+    return stats.get("peak_bytes_in_use")
 
 
 def sweep(records, nb_mode=100, max_stack=50, max_branch=1000,
@@ -91,7 +148,7 @@ def sweep(records, nb_mode=100, max_stack=50, max_branch=1000,
     selects which pair fills the primary columns."""
     from rafft_tpu.scoring import score_structures, best_of
     if engine == "jax":
-        from rafft_tpu.engine.fold_jax import FoldEngine, EngineConfig
+        from rafft_tpu.engine.fold_jax import FoldEngine
         from rafft_tpu.parallel.mesh import shard_state
 
     # the parent only dispatches while the pool folds, so use every core
@@ -157,33 +214,14 @@ def sweep(records, nb_mode=100, max_stack=50, max_branch=1000,
         # guarantee bit-exact reference semantics; those re-fold on the
         # sequential CPU-parity engine, in parallel after the stream
         if engine == "cpu":
-            # TPU-less mode: the whole bucket runs on the sequential
+            # device-less mode: the whole bucket runs on the sequential
             # parity engine, fanned out over a process pool (the
             # reference's Pool model, bench_fft.py:17-21, minus the
             # per-sequence interpreter respawn)
             pending = [(i, records[i][0], nb_mode, max_stack, max_branch)
                        for i in idxs]
         else:
-            R = 16 if N <= 512 else 32
-            # a region of padded length N has at most 2N-1 correlation
-            # lags, so top-M lag selection saturates there (the reference
-            # just takes every lag when nb_mode exceeds them)
-            #
-            # combination windows: long sequences carry more regions and
-            # more accepted candidates per region, so their per-step
-            # combination products are duplicate-heavy and overflow any
-            # single window long before the reference's max_branch
-            # new-structure cap — the round-4/round-5 flag histograms
-            # put ~100% of CPU fallbacks on v_window truncation in the
-            # 256+ buckets while the 128 bucket never trips.  The engine
-            # walks the combo space in V-slabs (fold_jax windowed
-            # enumeration); long buckets get a deeper window budget.
-            cfg = EngineConfig(N=N, K=max_stack,
-                               M=min(nb_mode, 2 * N - 1), R=R,
-                               max_branch=max_branch, V=4096,
-                               W=8 if N <= 128 else 24,
-                               CPLX=512 if N <= 128 else 1024,
-                               S=max(16384, 32 * max_stack))
+            cfg = bucket_config(N, nb_mode, max_stack, max_branch)
             eng = FoldEngine(cfg, B=bucket_batch(batch, N))
             # device-side continuous batching: the chip swaps finished
             # lanes onto preloaded shadow sequences inside one device
@@ -210,12 +248,7 @@ def sweep(records, nb_mode=100, max_stack=50, max_branch=1000,
                 if progress:
                     progress(N, n_done, len(idxs))
         if pending:
-            # forkserver: in jax-engine mode the parent holds a live
-            # XLA/TPU client by now; forking such a process can wedge the
-            # children (inherited TPU fds/mutexes).  Workers only need
-            # the CPU parity engine, so a fresh interpreter is safe.
-            ctx = mp.get_context("forkserver")
-            with ctx.Pool(min(len(pending), workers)) as pool:
+            with refold_pool(min(len(pending), workers)) as pool:
                 for i, rows in pool.imap_unordered(_cpu_refold, pending):
                     finish(i, rows, flag_of.get(i, 0)
                            if engine != "cpu" else 0)
@@ -235,7 +268,9 @@ def sweep(records, nb_mode=100, max_stack=50, max_branch=1000,
         if stats is not None:
             stats.setdefault("buckets", {})[str(N)] = dict(
                 n=len(idxs), secs=round(time.time() - t_bucket, 1),
-                batch=bucket_batch(batch, N))
+                batch=bucket_batch(batch, N),
+                peak_bytes_in_use=(device_peak_bytes()
+                                   if engine == "jax" else None))
         if progress:
             progress(N, len(idxs), len(idxs),
                      done=True, secs=time.time() - t_bucket)
@@ -288,7 +323,7 @@ def main(argv=None):
                     help="CPU-parity refold pool size (default: all cores)")
     ap.add_argument("--engine", choices=("jax", "cpu"), default="jax",
                     help="'cpu' folds every bucket on the sequential "
-                         "parity engine via the process pool (no TPU)")
+                         "parity engine via the process pool (no device)")
     ap.add_argument("--save-beams", dest="save_beams",
                     help="jsonl path: full saved beam per sequence, for "
                          "offline best-of-k re-scoring")
@@ -323,8 +358,10 @@ def main(argv=None):
 
     def progress(N, done_n, total, done=False, secs=None):
         if done:
+            peak = (device_peak_bytes() if args.engine == "jax" else None)
             print(f"[bucket {N}] {total} seqs in {secs:.1f}s "
-                  f"({total/max(secs,1e-9):.2f} seq/s)", flush=True)
+                  f"({total/max(secs,1e-9):.2f} seq/s); device "
+                  f"peak_bytes_in_use {peak}", flush=True)
 
     t0 = time.time()
     stats = {}
@@ -338,7 +375,7 @@ def main(argv=None):
     dt = time.time() - t0
     sel = "best_of_k" if args.best_of_k else "best_nrj"
     # run manifest: the exact configuration + counters that produced the
-    # result CSVs (VERDICT r3: sweeps must not run with unrecorded flags)
+    # result CSVs (sweeps must not run with unrecorded flags)
     manifest = dict(argv=vars(args), n_records=len(records),
                     elapsed_s=round(dt, 1), **stats)
     with open(f"{args.out}.manifest.json", "w") as fh:

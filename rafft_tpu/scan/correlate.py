@@ -9,7 +9,7 @@ Two paths:
   - correlate_np: scipy.signal.convolve per channel — including scipy's
     auto direct/FFT method switch, so float noise (and therefore
     tie-ordering of equal peaks) matches the reference bit-for-bit.
-  - correlate_jax: batched real-FFT over padded regions for the TPU
+  - correlate_jax: batched real-FFT over padded regions for the device
     engine (energy decisions there are integer; correlation only ranks
     candidate lags, so f32 FFT noise does not affect correctness).
 """
@@ -52,7 +52,7 @@ def top_lags(cor: np.ndarray, nb_mode: int):
 
 # ---------------------------------------------------------------- JAX path
 def correlate_jax(fwd, bwd, lengths, pad: float = 1.0):
-    """Batched correlation on TPU.
+    """Batched correlation on the device.
 
     fwd: [B, 4, M] one-hot (padded), bwd: [B, 4, M] weights (padded,
     reversed *within the true length*), lengths: [B] true region sizes.

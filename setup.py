@@ -3,14 +3,14 @@ from setuptools import setup, find_packages
 setup(
     name="rafft_tpu",
     version="0.1.0",
-    description="TPU-native RNA fast-folding framework "
+    description="RNA fast-folding framework on JAX "
                 "(FFT-based folding paths + kinetics)",
     packages=find_packages(include=["rafft_tpu", "rafft_tpu.*"]),
     scripts=["bin/rafft", "bin/rafft_kin"],
     python_requires=">=3.10",
     install_requires=["numpy", "scipy"],
     extras_require={
-        "tpu": ["jax"],
+        "jax": ["jax"],
         "viz": ["matplotlib", "scikit-learn"],
     },
 )

@@ -1,9 +1,8 @@
-"""TPU/JAX engine tests.
+"""Batched JAX engine tests.
 
-These run on the CPU backend (tests/conftest.py forces JAX_PLATFORMS=cpu
+These run on the CPU backend (tests/conftest.py sets JAX_PLATFORMS=cpu
 with a virtual 8-device mesh); the heavy golden-parity runs live in the
-slow markers and are also exercised on real TPU by the driver via
-__graft_entry__ / bench.py."""
+slow markers, and chip_smoke.py runs the engine on the GPU."""
 
 import numpy as np
 import pytest

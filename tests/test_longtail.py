@@ -1,6 +1,6 @@
 """Long-tail (>1024 nt) fold coverage (VERDICT r3 #3).
 
-The corpus tail — the two 23S rRNAs at 2,915/2,968 nt — exceeds the TPU
+The corpus tail — the two 23S rRNAs at 2,915/2,968 nt — exceeds the batched
 engine's region budget and folds on the sequential CPU parity engine
 (rafft_tpu/parallel/sweep.py fallback, tools/fold_longtail.py).  These
 tests pin that path:

@@ -1,14 +1,13 @@
-"""Exactness tests for the TPU-fast lookup formulations.
+"""Exactness tests for the one-hot lookup formulations.
 
 The one-hot einsum path must reproduce gathers bit-for-bit; the original
 bug this guards against: default-precision f32 dots round operands
-through bf16 on TPU, turning 751 into 752 (engine/lookup.py)."""
+through bf16, turning 751 into 752 (engine/lookup.py)."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from rafft_tpu.engine.lookup import (flat_lookup, batched_taa, diag_extract,
-                                     _MIN_IDX)
+from rafft_tpu.engine.lookup import flat_lookup, batched_taa, _MIN_IDX
 
 
 def test_flat_lookup_exact_large_values():
@@ -30,15 +29,3 @@ def test_batched_taa_exact():
     want = np.take_along_axis(tab, idx, axis=-1)
     np.testing.assert_array_equal(got, want)
 
-
-def test_diag_extract_exact():
-    rng = np.random.default_rng(9)
-    K, R, N, M, H, T = 4, 3, 128, 20, 65, 2
-    tabs = rng.integers(0, N + 1, (K, R, N, T), dtype=np.int32)
-    idx = rng.integers(0, N, (H, K, R, M), dtype=np.int32)
-    got = np.asarray(diag_extract(jnp.asarray(tabs), jnp.asarray(idx)))
-    want = np.empty((H, K, R, M, T), np.int32)
-    for h in range(H):
-        for t in range(T):
-            want[h, ..., t] = np.take_along_axis(tabs[..., t], idx[h], axis=-1)
-    np.testing.assert_array_equal(got.astype(np.int32), want)

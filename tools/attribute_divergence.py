@@ -11,7 +11,7 @@ diverges in ENERGY from the reference's frozen artifact
      (scipy-convolve correlation, reference tie order) and classes the
      row:
        cpu=ref    CPU refold reproduces the reference row -> our
-                  committed row was a TPU-engine (f32 FFT tie /
+                  committed row was a batched-engine (f32 FFT tie /
                   budget-fallback) artifact, closable on our side;
        cpu=ours   CPU refold reproduces our committed row  -> fresh
                   deterministic runs agree with us, the frozen artifact
@@ -153,7 +153,7 @@ def main():
         fh.write("## Fresh CPU-parity refold classes\n\n")
         fh.write("| class | rows | meaning |\n|---|---|---|\n")
         fh.write(f"| cpu=ref | {len(classes['cpu=ref'])} | our committed "
-                 "row was a TPU-engine artifact (f32 FFT tie order or "
+                 "row was a batched-engine artifact (f32 FFT tie order or "
                  "budget fallback); fresh CPU refold matches the "
                  "reference |\n")
         fh.write(f"| cpu=ours | {len(classes['cpu=ours'])} | fresh "

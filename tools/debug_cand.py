@@ -1,4 +1,4 @@
-"""Dump TPU-engine candidate internals for one parent structure."""
+"""Dump batched-engine candidate internals for one parent structure."""
 import os, sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import csv

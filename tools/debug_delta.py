@@ -1,4 +1,4 @@
-"""Cross-check the TPU engine's incremental candidate dE against the
+"""Cross-check the batched engine's incremental candidate dE against the
 exact oracle, for one parent structure (eager mode, CPU backend).
 
 Usage: JAX_PLATFORMS=cpu python tools/debug_delta.py <seq> <parent_db>

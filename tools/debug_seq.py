@@ -1,4 +1,4 @@
-"""Find the first step where the TPU engine diverges from the CPU engine."""
+"""Find the first step where the batched engine diverges from the CPU engine."""
 import os, sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import csv
@@ -32,7 +32,7 @@ for step in range(cfg.max_steps):
     beams = eng._beams(state, 1)[0]
     want = cpu_steps[step] if step < len(cpu_steps) else cpu_steps[-1]
     if beams != want:
-        print(f"DIVERGED at step {step}: tpu {len(beams)} cpu {len(want)}")
+        print(f"DIVERGED at step {step}: jax {len(beams)} cpu {len(want)}")
         sw = set(want)
         sg = set(beams)
         for i, (g, w) in enumerate(zip(beams, want)):
@@ -42,8 +42,8 @@ for step in range(cfg.max_steps):
                 print(f"   want {w}")
                 if i > 6:
                     break
-        print("  missing from tpu:", [x for x in want if x not in sg][:4])
-        print("  extra in tpu    :", [x for x in beams if x not in sw][:4])
+        print("  missing from jax:", [x for x in want if x not in sg][:4])
+        print("  extra in jax    :", [x for x in beams if x not in sw][:4])
         break
     state = eng._step(state)
 else:

@@ -1,9 +1,9 @@
 """Fold the >1024-nt corpus tail on the CPU parity engine.
 
-The two 23S rRNAs (2,915 / 2,968 nt) exceed the TPU engine's R=32
+The two 23S rRNAs (2,915 / 2,968 nt) exceed the batched engine's R=32
 region budget, so they would be flagged to the CPU fallback inside the
 sweep anyway (rafft_tpu/parallel/sweep.py finish()); folding them here,
-concurrently with the TPU sweep, keeps the chip busy on the bucketed
+concurrently with the device sweep, keeps the chip busy on the bucketed
 corpus.  Emits rows in the sweep checkpoint-journal schema so
 tools/merge_corpus.py can assemble the full 2,296-row result CSVs.
 

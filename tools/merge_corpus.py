@@ -1,6 +1,6 @@
 """Assemble the full-corpus result CSVs from sweep + long-tail runs.
 
-Reads the TPU sweep checkpoint journal (<=1024-nt buckets,
+Reads the device sweep checkpoint journal (<=1024-nt buckets,
 rafft_tpu/parallel/sweep.py) and the long-tail journal
 (tools/fold_longtail.py, the two >1024-nt 23S rRNAs) and writes the two
 reference-schema result CSVs in corpus order:

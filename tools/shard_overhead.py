@@ -1,13 +1,10 @@
-"""Bound the per-chip overhead of the sharded fold program (VERDICT r4
-item 6).
+"""Bound the per-device overhead of the sharded fold program.
 
-On the real TPU: run the same run_stream workload (a) unsharded and
+On the GPU: run the same run_stream workload (a) unsharded and
 (b) sharded over a 1-device mesh (shard_map-compatible NamedSharding
 placement, the exact code path the multi-chip sweep uses).  The delta
-bounds the sharding machinery's per-chip cost, so the N-chip
-extrapolation rests on a measured number instead of the round-4
-15%-efficiency shared-host-core artifact.  The 8-virtual-device CPU
-collective path is exercised separately (bench_full.md).
+bounds the sharding machinery's per-device cost.  chip_smoke.py --four
+checks the 4-card sweep against one card.
 
 Usage: python tools/shard_overhead.py [n_seqs]
 """
